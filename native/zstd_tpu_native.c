@@ -1,6 +1,6 @@
 /* Native host-runtime kernels for zstd_tpu.
  *
- * The compute path is JAX/XLA/Pallas on the TPU; these C routines cover
+ * The compute path is JAX/XLA/Pallas on the accelerator; these C routines cover
  * the host-side runtime around it (SURVEY.md §2: "host-side C++ where a
  * serial CPU prepass is truly required"):
  *
@@ -10,7 +10,7 @@
  *     byte-at-a-time loop (decoding_context.rs:78-107) as memcpy-chunked
  *     copies with overlap-correct period replication.  Used by the
  *     engine's host-assembly stage; the device wavefront kernel is the
- *     pure-TPU alternative.
+ *     pure-device alternative.
  *
  * Built with plain gcc -O2 -shared; loaded via ctypes (no pybind11 in
  * the environment).  Return codes mirror the Python error taxonomy.

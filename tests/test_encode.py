@@ -1,7 +1,7 @@
 """Encoder tests: round-trips through our decoder AND libzstd, ratio
-sanity vs libzstd, component golden checks (M4, BASELINE.json: encode
-output <= reference size is the long-term target; round-trip exactness
-is the hard gate)."""
+sanity vs libzstd, component golden checks (encode output <= libzstd's
+size is the long-term target; round-trip exactness is the hard
+gate)."""
 
 import numpy as np
 import pytest

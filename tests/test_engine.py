@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from zstd_tpu.format.block_table import build_batch_plan
-from zstd_tpu.runtime.engine import DeviceEngine, _tier_split
+from zstd_tpu.runtime.engine import DeviceEngine, _kernel_lanes, _tier_split
 from zstd_tpu.runtime.oracle import decompress as oracle_decompress
 from zstd_tpu.testing import libzstd
 
@@ -141,6 +141,54 @@ def test_tier_split():
     assert len(_tier_split(np.full(16, 100), lo=4)) == 1
 
 
+def test_kernel_lanes_sort_and_padding():
+    # GPU dispatch layout: lanes with work sorted by descending need,
+    # padded with -1 rows to a pow2 count of whole 16-lane blocks, and
+    # each block's loop bound its own largest need.
+    need = np.array([5, 0, 90, 7, 90, 1, 33] + [2] * 14)
+    rows, blk = _kernel_lanes(need, 16)
+    assert len(rows) == 32 and (rows >= 0).sum() == 20
+    real = rows[:20]
+    assert list(real[:4]) == [2, 4, 6, 3]  # stable among equal needs
+    assert (np.diff(need[real]) <= 0).all() and 1 not in real
+    assert (rows[20:] == -1).all()
+    assert list(blk) == [90, 2]
+    # No live lane -> nothing to dispatch.
+    rows, blk = _kernel_lanes(np.zeros(5, np.int64), 16)
+    assert len(rows) == 0 and len(blk) == 0
+
+
+def test_mesh_rows_spread_over_devices():
+    # On a mesh every device's block of rows gets an equal share of the
+    # real lanes (a tail of padding would leave the last devices idle).
+    class _Mesh:
+        class devices:
+            size = 4
+
+    eng = DeviceEngine(mesh=_Mesh())
+    rows = eng._pad_lanes(np.arange(10, 20))
+    assert len(rows) == 32
+    per_device = (rows.reshape(4, 8) >= 0).sum(axis=1)
+    assert list(per_device) == [3, 3, 2, 2]
+    assert sorted(rows[rows >= 0].tolist()) == list(range(10, 20))
+    single = DeviceEngine()._pad_lanes(np.arange(10, 20))
+    assert list(single[:10]) == list(range(10, 20)) and (single[10:] == -1).all()
+
+
+def test_route_choice():
+    # The Triton kernels run only on a GPU without a mesh; a test pin
+    # overrides.
+    import jax
+
+    eng = DeviceEngine()
+    want = "kernel" if jax.default_backend() == "gpu" else "scan"
+    assert eng._route() == want
+    eng.mesh = object()
+    assert eng._route() == "scan"
+    eng._route_pin = "interpret"
+    assert eng._route() == "interpret"
+
+
 def test_device_execute_path(corpus):
     # Pure-device LZ77 execution (pointer-doubling kernel) must match.
     eng = DeviceEngine(device_execute=True)
@@ -164,8 +212,7 @@ def _stall_heavy_frame():
     """Handcraft a frame whose sequence streams sustain near-worst-case
     bit bursts (large-offset + large-ll/ml extras + spread FSE codes) —
     the workload that pins the kernels' never-stall invariant
-    (entropy2.SEQ_BUF_WORDS) and the exact step bounds (VERDICT r1
-    weak #7)."""
+    (entropy2.SEQ_BUF_WORDS) and the exact step bounds."""
     from zstd_tpu.encode import (
         MAGIC_ZSTD,
         _frame_header,
@@ -324,7 +371,7 @@ def test_fetch_thread_exception_falls_back_to_oracle(monkeypatch):
         handles = list(xs)
 
         def gen():
-            raise OSError("injected relay fetch failure")
+            raise OSError("injected fetch failure")
             yield  # pragma: no cover
 
         return gen() if handles else iter(())

@@ -99,3 +99,38 @@ def test_source_map_matches_host_executor():
             s = src[j]
             full[out_len + j] = lits[-s - 1] if s < 0 else full[s]
         assert full.tobytes() == bytes(out), trial
+
+
+def test_huffman_flat_matches_table():
+    # The Triton kernels' flat 2^11 Huffman tables must give every
+    # 11-bit window the symbol and code length of the host flat table.
+    from zstd_tpu.format.block_table import pack_huffman_canonical
+    from zstd_tpu.kernels.triton_decode import huffman_flat
+    from zstd_tpu.ops.huffman import parse_huffman_table
+    from zstd_tpu.testing import libzstd
+    from zstd_tpu.utils.bits import ForwardByteCursor
+
+    if not libzstd.available():
+        pytest.skip("libzstd not available")
+    from zstd_tpu.format.frame import iter_frames
+
+    rng = np.random.default_rng(11)
+    tables = []
+    for k in range(4):
+        alphabet = np.frombuffer(bytes(range(97, 97 + 6 + 20 * k)), np.uint8)
+        p = rng.random(len(alphabet)) ** 3
+        payload = rng.choice(alphabet, 40_000, p=p / p.sum()).tobytes()
+        frame = next(iter_frames(libzstd.compress(payload, 3)))
+        for block in frame.blocks:
+            lit = getattr(block, "literals", None)
+            if lit is not None and lit.huffman_payload is not None:
+                tables.append(parse_huffman_table(ForwardByteCursor(lit.huffman_payload)))
+    assert tables
+    canon = [pack_huffman_canonical(t) for t in tables]
+    flat = huffman_flat(*(np.stack([c[k] for c in canon]) for k in
+                          ("limits", "prevs", "lengths", "rankb", "ranked")))
+    for t, row in zip(tables, flat):
+        scale = 11 - t.max_bits
+        idx = np.arange(2048) >> scale
+        assert np.array_equal(row & 0xFF, t.symbol[idx])
+        assert np.array_equal(row >> 8, t.nbits[idx])

@@ -1,8 +1,8 @@
 """Multi-device sharded decode tests.
 
 Runs the full sharded pipeline on a virtual 8-device CPU mesh in a
-subprocess (the platform must be fixed before JAX initializes; the main
-test process may already hold the TPU).  Also unit-tests the host-side
+subprocess (the platform must be fixed before JAX initializes, and the
+subprocess must not open a GPU the main process may hold).  Also unit-tests the host-side
 scheduling pieces in-process.
 """
 
@@ -53,8 +53,7 @@ print("SHARDED_OK", len(out))
 @pytest.mark.slow
 def test_sharded_decode_8_virtual_devices():
     env = dict(os.environ)
-    env["JAX_PLATFORMS"] = ""
-    env["JAX_PLATFORM_NAME"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = (
         env.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
     ).strip()

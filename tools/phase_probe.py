@@ -13,7 +13,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from bench import build_corpus  # noqa: E402
+from zstd_tpu.testing.corpus import build_corpus  # noqa: E402
 from zstd_tpu.format.block_table import build_batch_plan  # noqa: E402
 from zstd_tpu.runtime.engine import DeviceEngine, _handles  # noqa: E402
 from zstd_tpu.testing import libzstd  # noqa: E402

@@ -22,7 +22,7 @@ import numpy as np  # noqa: E402
 def main() -> None:
     import jax
 
-    from bench import build_corpus
+    from zstd_tpu.testing.corpus import build_corpus
     from zstd_tpu.format.block_table import build_batch_plan
     from zstd_tpu.runtime.engine import DeviceEngine, _handles
     from zstd_tpu.runtime.jaxcache import enable_compilation_cache

@@ -1,10 +1,11 @@
-"""zstd_tpu — a TPU-native ZSTD codec (JAX / XLA / Pallas).
+"""zstd_tpu — a ZSTD codec with a batched accelerator decoder (JAX /
+XLA / Pallas-Triton).
 
 Brand-new implementation of RFC 8878 with the capabilities of the
-reference decompressor (AchilleBailly/zstd-decompressor, mounted at
-/root/reference), re-architected TPU-first: host-side parsing prepass,
-wide batched entropy-decode kernels, chunked sequence execution, and
-mesh-sharded multi-chip decode.  See SURVEY.md for the layer map.
+reference decompressor (AchilleBailly/zstd-decompressor), built around
+a host-side parsing prepass, wide batched entropy-decode kernels,
+chunked sequence execution, and mesh-sharded multi-device decode.  See
+SURVEY.md for the layer map.
 
 Layout:
 
@@ -12,7 +13,7 @@ Layout:
 * ``zstd_tpu.format``   — frame/block/section parsing (host prepass)
 * ``zstd_tpu.ops``      — FSE/Huffman table builds, code tables, LZ77
 * ``zstd_tpu.runtime``  — host oracle decoder, decoding context, engine
-* ``zstd_tpu.kernels``  — device (Pallas/jnp) decode kernels
+* ``zstd_tpu.kernels``  — device (Pallas-Triton/lax.scan) decode kernels
 * ``zstd_tpu.parallel`` — mesh sharding, multi-host block dispatch
 * ``zstd_tpu.testing``  — libzstd differential oracle (tests only)
 """

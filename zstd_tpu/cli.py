@@ -8,7 +8,8 @@ routes output through ``String::from_utf8`` and panics on binary data
 (src/main.rs:55-57) — output is always raw bytes.
 
 Extra flags expose codec capabilities the reference lacks: checksum
-enforcement, window-size override, and the device (TPU) decode path.
+enforcement, window-size override, and the device (GPU/accelerator)
+decode path.
 """
 
 from __future__ import annotations
@@ -115,7 +116,8 @@ def _format_info(frame, index: int) -> str:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="zstd-tpu",
-        description="TPU-native ZSTD codec (decompress a .zst file).",
+        description="ZSTD codec with a batched accelerator decoder "
+        "(decompress a .zst file).",
     )
     p.add_argument("file_name", help="input .zst file")
     p.add_argument(
@@ -141,7 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device",
         action="store_true",
-        help="decode on the TPU via the batched device engine",
+        help="decode on the GPU/accelerator via the batched device engine",
     )
     p.add_argument(
         "--report",
@@ -155,7 +157,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="DIR",
         help="wrap the device decode in a jax.profiler trace written to "
-        "DIR (view with TensorBoard)",
+        "DIR (view with TensorBoard or Perfetto)",
     )
     return p
 

@@ -1,7 +1,7 @@
 """ZSTD encoder (host side).
 
 The reference has no encoder; the north star requires one so round
-trips hold (BASELINE.json).  This is a from-scratch RFC 8878 encoder:
+trips hold.  This is a from-scratch RFC 8878 encoder:
 
 * frame writer (magic, header with FCS/window descriptor, optional
   XXH64 content checksum)
@@ -883,7 +883,7 @@ def _level_params(level: int) -> tuple[int, bool]:
         return 8, True
     # The DP parse beats deeper lazy searches from here on: on 300 KB
     # of moby text, lazy-16 = 124,082 B vs optimal-32 = 112,719 B —
-    # past libzstd-6's 116,080 (r5; BASELINE.md encoder table).
+    # past libzstd-6's 116,080.
     if level <= 6:
         return 32, "optimal"
     if level <= 9:
@@ -903,7 +903,7 @@ def _compress_block(
     At optimal levels the block is parsed BOTH ways (price-driven DP
     and one-step lazy) and the smaller encoding wins: on structured
     synthetics the weaker parse sometimes lands on lower-entropy
-    streams (see BASELINE.md encoder notes), and measuring beats
+    streams, and measuring beats
     guessing."""
     from . import native
 

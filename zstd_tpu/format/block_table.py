@@ -116,8 +116,7 @@ def pack_fse_dual(table: fse_ops.FseTable, kind: str) -> tuple[np.ndarray, np.nd
     Compact form: exactly ``table.size`` (= 2^al) entries per plane —
     the device bank stores tables back to back (variable-size slots)
     because a blanket 512-row slot made the bank upload ~3x the real
-    table volume on the bench corpus, and the upload rides the slow
-    relay (BASELINE.md)."""
+    table volume on the bench corpus."""
     p0 = (table.baseline.astype(np.int32) << 16) | table.nbits.astype(np.int32)
     p1 = _fse_value_plane(np.asarray(table.symbol), kind)
     return p0.astype(np.int32), p1
@@ -220,8 +219,8 @@ def input_words(data: bytes | memoryview) -> np.ndarray:
     Absolute indexing: entropy streams are NOT repacked — each lane
     addresses its payload in place via (base_word, p0, pend) from
     ``_StreamLocator``.  This keeps the prepass copy-free and lets the
-    engine start the words upload before parsing finishes (the relay
-    upload then overlaps the host prepass, BASELINE.md)."""
+    engine start the words upload before parsing finishes (the upload
+    then overlaps the host prepass)."""
     n = len(data)
     main = n >> 2
     out = np.zeros(main + 1, dtype="<u4")
@@ -442,7 +441,7 @@ def build_batch_plan(
     """Parse ``data`` and lay out every entropy stream as a kernel lane.
 
     ``words``: a pre-built :func:`input_words` array (the engine builds
-    and uploads it before calling here so the relay transfer overlaps
+    and uploads it before calling here so the transfer overlaps
     this prepass); built on demand otherwise.
 
     ``frames``: pre-parsed frames (a slice of the input's frame list)

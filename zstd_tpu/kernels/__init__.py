@@ -1,26 +1,14 @@
 """Device decode kernels.
 
-* ``bitbuf.py``      — per-lane N-word buffered bit windows (lax.scan
+* ``triton_decode.py`` — Pallas-Triton kernels for NVIDIA GPUs: one
+  launch per phase, each lane running its whole Huffman-literals or
+  interleaved-tANS sequences loop with per-lane indexed loads (the
+  engine's GPU path)
+* ``entropy2.py``    — lax.scan kernel family (plain XLA on any
+  backend: the CPU path, the mesh/GSPMD path, the wide retry, and the
+  reference the Triton kernels are tested against)
+* ``bitbuf.py``      — per-lane N-word buffered bit windows (the scan
   kernels' building block)
-* ``entropy2.py``    — lax.scan kernel family (select-based lookups,
-  tile-aligned emission, word-granular packing + gather compaction)
-* ``pallas_lit.py``  — Mosaic literals kernel (one-hot window selects,
-  whole decode loop in one fori_loop body)
-* ``pallas_seq.py``  — Mosaic sequences kernel (L1 sliding word cache,
-  (8, 128) tensor bit buffer, static table heights)
-* ``compact_dma.py`` — per-lane DMA compaction for big calls (replaces
-  the serial data-dependent dense gather)
 * ``lz77_device.py`` — pointer-doubling sequence execution (optional;
-  the host C executor wins by measurement — BASELINE.md r5 records the
-  Mosaic chunked-copy spike at 5.0 ns/byte vs C's 1.9)
-
-History note: rounds 1-2 argued "Mosaic exposes no per-lane VMEM
-gather, so Pallas can't beat the jnp formulation" — r3's spike proved
-that wrong at the system level (the scan's per-step overhead, not the
-table work, dominated), and r5's profiling moved the remaining cost
-walls again (relay execution latency, serial XLA gathers — see
-BASELINE.md "r5 cost-model correction").  The lax.scan forms remain the
-oversized-window fallback, the mesh/GSPMD path, and the CPU test
-substrate; the Mosaic forms are the TPU production path, differentially
-red-tested against them (tests/test_pallas.py).
+  the host C executor is the default)
 """

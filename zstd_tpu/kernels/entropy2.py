@@ -1,8 +1,9 @@
-"""Batched entropy decode, v2 — measured-cost-driven TPU design.
+"""Batched entropy decode as lax.scan loops (plain XLA, any backend).
 
-Differences from the v1 kernels (kernels/entropy.py), driven by TPU v5e
-microbenchmarks (per-lane gathers ~13 us/op at 1024 lanes; per-step row
-emissions ~60 us unless tile-aligned; VPU elementwise ~free):
+The engine runs these forms on the CPU and under a device mesh; on a
+GPU it runs the Triton kernels (triton_decode.py), which are tested
+against these.  The design avoids per-read gathers and table gathers,
+which an earlier accelerator executed serially:
 
 * **Buffered bit reads** — one u32 refill gather per ~2 symbols via the
   per-lane N-word window (kernels/bitbuf.py) instead of 2 gathers per
@@ -11,7 +12,7 @@ emissions ~60 us unless tile-aligned; VPU elementwise ~free):
   a 96-bit buffer would deadlock in the (64, 90) occupancy window).
 * **No table gathers** — the host pre-gathers each lane's table rows
   ((L, 12)/(L, 256) canonical-Huffman arrays, (L, 512) FSE planes);
-  in-kernel lookups are compare-iota + select-reduce, pure VPU.
+  in-kernel lookups are compare-iota + select-reduce, elementwise.
 * **Arithmetic canonical Huffman** — code length from 12 boundary
   compares in the 11-bit window space, then a ranked-symbol select;
   no 2048-entry LUT.
@@ -124,30 +125,13 @@ def _pack_words(pa, pb, w_ll, w_ml, w_of):
     return lo, hi, jnp.any(over, axis=0)
 
 
-def _seq_word_plane(lo, hi, w_ll, w_ml, w_of):
-    """(2R, L) plane whose rows are each lane's packed words in order:
-    g = 1 lanes (width sum <= 32) use lo rows directly; g = 2 lanes
-    interleave lo/hi.  Row maps are static, so this is elementwise —
-    the input to the DMA compaction (kernels/compact_dma.py)."""
-    R, L = lo.shape
-    inter = jnp.stack([lo, hi], axis=1).reshape(2 * R, L)
-    lo_pad = jnp.concatenate([lo, jnp.zeros_like(lo)], axis=0)
-    g1 = ((w_ll + w_ml + w_of) <= 32)[None, :]
-    return jnp.where(g1, lo_pad, inter)
-
-
 def _pack_triples(pa, pb, w_ll, w_ml, w_of, nseq, cumw, n_dense_w: int):
     """Word-granular pack + gather compaction (XLA form).
 
     Each lane's sequence k occupies exactly ``g`` whole u32 words
     (g = 1 when the lane's field-width sum w = w_ll + w_ml + w_of is
-    <= 32, else 2).  Word granularity costs ~4-8% more fetch than the
-    old bit-granular pack (~4 B vs ~3.9 B per sequence at the bench
-    corpus's w ~ 31) but compacts with ONE data-dependent gather
-    instead of 2J = 6 — such gathers lower serially (~17 ns/element,
-    BASELINE.md r5).  The TPU production path replaces even this gather
-    with per-lane DMA copies (kernels/compact_dma.py); this form serves
-    interpret mode, CPU backends and the mesh path.
+    <= 32, else 2), so compaction is ONE data-dependent gather.  The
+    Triton sequences kernel writes the same layout directly.
 
     cumw: int32[L+1] prefix sums of per-lane word counts nseq * g.
     Returns (packed uint32[n_dense_w], lane_overflow bool[L]).
@@ -282,8 +266,7 @@ def decode_literals_dense(
     """Literals decode with on-device compaction: returns
     (dense uint32[n_dense] — lane j's packed words at cum[j]..cum[j+1],
     ok bool[L]).  The fetch then moves only real symbols, not the
-    (steps, lanes) padding — the relay fetch is the end-to-end
-    bottleneck (BASELINE.md)."""
+    (steps, lanes) padding."""
     base, p0, pend, regen, slots = (lane_mat[:, c] for c in range(LIT_LANE_COLS))
     row = lambda b: jnp.take(b, slots, axis=0)  # noqa: E731
     ys, ok = _literals_scan(
@@ -291,8 +274,8 @@ def decode_literals_dense(
         row(b_limits), row(b_prevs), row(b_lengths), row(b_rankb),
         row(b_ranked), max_steps,
     )
-    # One output array per call: dense words then per-lane ok flags —
-    # each fetched array pays a relay round-trip, so pack everything.
+    # One output array per call: dense words then per-lane ok flags, so
+    # each call costs one device-to-host transfer.
     return jnp.concatenate([_compact(ys, cum, n_dense), ok.astype(U32)])
 
 
@@ -445,8 +428,7 @@ def decode_sequences_v2(
     """Decode L interleaved tANS sequence streams, 8 slots per step.
 
     Outputs are bit-packed because the decoded triples travel back to
-    the host and the relay fetch path (~35-60 MB/s, BASELINE.md) is the
-    end-to-end bottleneck — the per-slot byte cost IS the wall time:
+    the host:
 
     * narrow (default, 8 B/slot): returns
       ``(pa uint32[steps, 8, L], pb uint32[steps, 8, L], ok bool[L])``

@@ -13,11 +13,10 @@ The host precomputes the per-byte source map with NumPy interval
 arithmetic (no Python per-byte loops); the device runs the doubling
 rounds and the final materialization.
 
-Measured tradeoff on TPU v5e: XLA's serialized 1-D gathers make each
-round cost ~10 ns/byte, so the native C executor
-(native/zstd_tpu_native.c, memcpy-chunked) wins on this part today;
-this kernel is the pure-device path (``DeviceEngine(device_execute=
-True)``) and the scaling story for hardware with vector gathers.
+The engine's default executor is the native C one
+(native/zstd_tpu_native.c, memcpy-chunked); this kernel is the
+pure-device path (``DeviceEngine(device_execute=True)``), off by
+default.  Its speed on a GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -120,12 +119,6 @@ def resolve_and_materialize(src, literals, *, rounds: int = 25):
     resolved to a literal — real streams' match chains are usually
     < 2^4 deep, so this typically runs a handful of the up-to-
     ``rounds`` iterations.  Returns uint8[T].
-
-    Measured floor (v5e, clean process): XLA lowers the whole-buffer
-    1-D gather at ~0.12 G elem/s, i.e. ~8 ns/byte *per round* — which
-    is why the engine's default execution path is the C memcpy
-    executor and this kernel is the pure-device alternative
-    (BASELINE.md r2 notes).
     """
     import jax
     import jax.numpy as jnp

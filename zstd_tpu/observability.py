@@ -16,7 +16,7 @@ from dataclasses import dataclass, field
 
 @dataclass
 class RunReport:
-    """Structured report for one decode run (feeds BASELINE.md)."""
+    """Structured report for one decode run."""
 
     bytes_in: int = 0
     bytes_out: int = 0
@@ -73,17 +73,14 @@ class RunReport:
 
 @contextlib.contextmanager
 def profiled(trace_dir: str | None = None):
-    """Wrap a decode in a jax.profiler trace (view with TensorBoard).
-
-    No-op when ``trace_dir`` is None or the profiler is unavailable.
+    """Wrap a decode in a jax.profiler trace (view with TensorBoard or
+    Perfetto).  No-op when ``trace_dir`` is None; a failing trace
+    raises like any other error.
     """
     if trace_dir is None:
         yield
         return
-    try:
-        import jax
+    import jax
 
-        with jax.profiler.trace(trace_dir):
-            yield
-    except Exception:
+    with jax.profiler.trace(trace_dir):
         yield

@@ -1,1 +1,1 @@
-"""Multi-chip / multi-host sharded decode. Populated by the M3 milestone."""
+"""Multi-device / multi-host sharded decode."""

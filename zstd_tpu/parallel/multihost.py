@@ -9,9 +9,8 @@ The SURVEY.md §2.3 "multi-host scheduler" made real: under
 3. each process decodes only its bin with the shared v2 kernel
    dispatch (runtime/engine.py, lane-sharded over its local chips),
 4. per-lane outputs are exchanged with an ordered fixed-shape
-   all-gather across processes (pad-to-max + exact slicing — the
-   BASELINE.json config #5 "ordered gather" of variable-length
-   block outputs), and
+   all-gather across processes (pad-to-max + exact slicing of
+   variable-length block outputs), and
 5. every process assembles the full frame bytes identically.
 
 The reference decodes everything on one thread

@@ -1,13 +1,19 @@
 """Persistent XLA compilation cache setup.
 
-The batched kernels compile per (lane-count, step-count) bucket; caching
-compiled executables on disk makes every process after the first start
-warm (both CPU and TPU backends honor the cache).
+The batched kernels compile per (lane-count, output-size) shape;
+caching compiled executables on disk makes every process after the
+first start warm.  Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX
+reads it itself and no other path is set here; otherwise the cache is
+the fixed ``.jax_cache`` directory of this checkout, so every later
+process of the same checkout finds what earlier ones stored.
 """
 
 from __future__ import annotations
 
 import os
+import pathlib
+
+DEFAULT_CACHE_DIR = pathlib.Path(__file__).resolve().parents[2] / ".jax_cache"
 
 _done = False
 
@@ -17,14 +23,8 @@ def enable_compilation_cache() -> None:
     if _done:
         return
     _done = True
-    try:
-        import jax
+    import jax
 
-        cache_dir = os.environ.get(
-            "ZSTD_TPU_JAX_CACHE", os.path.expanduser("~/.cache/zstd_tpu_jax")
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover — cache is an optimization only
-        pass
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", str(DEFAULT_CACHE_DIR))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

@@ -1,6 +1,6 @@
 """Bit-level cursors over byte buffers (host side).
 
-TPU-first reformulation of the reference's three parsers
+Batched-decoder-first reformulation of the reference's three parsers
 (/root/reference/zstd-decompressor/src/parsing.rs:29-259):
 
 * :class:`ForwardByteCursor` — forward byte cursor (parsing.rs:29-112)

@@ -1,4 +1,4 @@
-"""Structured error taxonomy for the TPU-native ZSTD codec.
+"""Structured error taxonomy for the ZSTD codec.
 
 Mirrors the reference's seven per-layer ``thiserror`` enums
 (/root/reference/zstd-decompressor/src: parsing.rs:11-25, frame.rs:13-39,
